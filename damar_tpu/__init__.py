@@ -1,4 +1,4 @@
-"""damar_tpu — a TPU-native long-read overlapper and assembly engine.
+"""damar_tpu — a GPU-accelerated long-read overlapper and assembly engine.
 
 A from-scratch rebuild of the capabilities of MartinPippel/DAmar
 (Dazzler/MARVEL lineage): block-split 2-bit read databases, k-mer
@@ -25,20 +25,22 @@ import os as _os
 
 
 def _enable_compilation_cache() -> None:
-    """Enable JAX's persistent compilation cache unless the user already
-    configured one.  The alignment kernels compile large loop nests
-    (minutes on CPU); caching makes every process after the first start
-    instantly.  Opt out with DAMAR_NO_COMPILE_CACHE=1."""
+    """Enable JAX's persistent compilation cache.  JAX reads
+    JAX_COMPILATION_CACHE_DIR itself when it is set; otherwise the
+    cache lives at one fixed path inside the checkout (<repo>/.jax_cache,
+    gitignored), since the path is part of the cache key.  The
+    alignment kernels compile large loop nests, so every process after
+    the first starts warm.  Opt out with DAMAR_NO_COMPILE_CACHE=1."""
     if _os.environ.get("DAMAR_NO_COMPILE_CACHE"):
         return
-    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return
     import jax
-    cache = _os.path.join(
-        _os.path.expanduser("~"), ".cache", "damar_tpu", "jax_cache")
-    _os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
+
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
 _enable_compilation_cache()

@@ -577,7 +577,7 @@ def cmd_pipeline(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="damar_tpu",
-        description="TPU-native long-read overlap + assembly toolbox")
+        description="GPU-accelerated long-read overlap + assembly toolbox")
     sub = p.add_subparsers(dest="tool", required=True)
 
     def tool(name, fn, *specs, **kw):
@@ -700,13 +700,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    # DAMAR_PLATFORM=cpu|tpu|... : explicit backend selection that
-    # survives site customizations which override JAX_PLATFORMS (the
-    # config update wins over any sitecustomize default)
-    plat = os.environ.get("DAMAR_PLATFORM")
-    if plat:
-        import jax
-        jax.config.update("jax_platforms", plat)
     try:
         args.fn(args)
     except (FileNotFoundError, ValueError) as e:

@@ -12,7 +12,7 @@ block compiles once:
   ids      int32[nr]       local ordinal -> absolute (untrimmed) read id
 
 Padding to a fixed capacity keeps XLA shapes static across blocks of
-similar size (capacity buckets of 2^n), the TPU analogue of the
+similar size (capacity buckets of 2^n), the device analogue of the
 reference's ~200MB block invariant.
 """
 from __future__ import annotations

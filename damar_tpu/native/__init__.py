@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -20,16 +21,40 @@ _LIB = None
 _TRIED = False
 
 
-def _build() -> str | None:
+def _host_key() -> str:
+    """The build host's architecture and CPU feature flags: code built
+    with -march=native is only valid on a CPU with the same flags."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    flags = line.strip()
+                    break
+    except OSError:
+        pass
+    return f"{platform.machine()}\n{flags}"
+
+
+def _lib_path() -> str:
+    """Library path keyed on the C source and the host CPU, so a
+    checkout copied to another machine rebuilds instead of loading
+    code compiled for a different CPU."""
+    h = hashlib.sha256()
     with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(_HERE, f"libdamar_native.{tag}.so")
+        h.update(f.read())
+    h.update(_host_key().encode())
+    return os.path.join(_HERE, f"libdamar_native.{h.hexdigest()[:16]}.so")
+
+
+def _build() -> str | None:
+    so = _lib_path()
     if os.path.exists(so):
         return so
     for cc in ("cc", "gcc", "clang"):
         # -march=native vectorizes the lockstep bp kernels; the .so is
-        # machine-local (gitignored, name keyed on source hash), so
-        # host-specific codegen is safe.  Fall back without it.
+        # keyed on the host CPU (see _lib_path), so host-specific
+        # codegen is safe.  Fall back without it.
         # Compile to a temp name and rename only on success: a killed/
         # timed-out cc must not leave a partial .so that the exists()
         # check above would hand to CDLL forever after.

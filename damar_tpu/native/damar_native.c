@@ -2,7 +2,7 @@
  *
  * The reference implements its entire host runtime in C (SURVEY.md §2:
  * DB codec in db/DB.c, .las IO in dalign/align.c, merge in LAmerge.c —
- * upstream-path citations, reference mount empty).  The TPU build keeps
+ * upstream-path citations, reference mount empty).  This build keeps
  * the compute path in JAX/Pallas but implements the same hot HOST
  * paths natively: 2-bit base packing (ingest of multi-GB FASTA) and
  * streaming k-way .las merge (tens of GB of overlap shards, the
@@ -505,8 +505,8 @@ int64_t trace_points_batch(const uint8_t *a, const uint8_t *b,
 /* ---------------- bit-parallel band kernels ----------------
  *
  * Exact scalar replicas of ops/wave_bp.py (extend_wave_bp /
- * trace_wave_bp): the Myers/Hyyro-style band-in-a-word DP the TPU
- * path runs as batched VPU lanes.  Every integer operation below
+ * trace_wave_bp): the Myers/Hyyro-style band-in-a-word DP the GPU
+ * path runs one seed per thread (ops/wave_bp_gpu.py).  Every integer operation below
  * mirrors the JAX kernel so the CPU fallback produces BIT-IDENTICAL
  * extents/traces (asserted by tests/test_native_bp.py); pthreads
  * split the independent units across cores.

@@ -1,11 +1,11 @@
 """K-mer code extraction over packed block base arrays.
 
-TPU-first equivalent of the k-mer tuple build in the overlapper's
+Vectorized equivalent of the k-mer tuple build in the overlapper's
 seeding stage (SURVEY.md §2.3 'k-mer seeding', upstream dalign/filter.c
 Sort_Kmers — upstream-path citation, reference mount empty): instead of
 a scalar loop building (code, read, pos) tuples, the whole block's code
-vector is computed with k shifted adds over the base array (VPU-shaped,
-no gather), and validity is a vector predicate.
+vector is computed with k shifted adds over the base array (no
+gather), and validity is a vector predicate.
 
 A k-mer starting at global position i is valid iff the window lies
 within one read (read_id[i] == read_id[i+k-1]; the padding sentinel

@@ -2,7 +2,7 @@
 
 Serves the CPU backend (selected next to the native bp kernels,
 DAMAR_BP; see pipeline.overlap._kernels): the XLA seeding kernels are
-the TPU production path, but on the CPU fallback their sorts and
+the device production path, but on the CPU backend their sorts and
 scatter glue dominate the overlap wall clock.  This module reproduces
 ops.seeding.find_seeds_canonical_dev EXACTLY — same hits in the same
 order, same banding sort order (two-pass stable radix == the packed

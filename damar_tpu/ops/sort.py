@@ -1,27 +1,26 @@
-"""TPU-native stable sorts and sorted-stream helpers.
+"""Device stable sorts and sorted-stream helpers.
 
 The reference overlapper's seeding stage is built on a multi-pass LSD
 radix sort of k-mer tuples (SURVEY.md §2.3, upstream dalign/filter.c
 Sort_Kmers — upstream-path citation, reference mount empty).  This
-module provides the TPU equivalent with TWO interchangeable backends
+module provides the device equivalent with interchangeable backends
 behind one stable-sort API:
 
-  * "xla" (default): jax.lax.sort (is_stable=True).  Measured on the
-    real TPU chip: ~5-10 ms for 4M keys + payloads — 30-100x faster
-    than anything composed from scatters (a single 4M scatter costs
-    ~25-40 ms; a 29-bit radix chain needs dozens).  Its cost is
-    compile time: ~20-45 s per distinct (shape, operand-count)
-    bucket, paid once per process and excluded by warmup — the right
-    trade for production runs where one process sweeps many same-
-    shaped block pairs.
+  * "xla" (default): jax.lax.sort (is_stable=True) — one fused sort,
+    far cheaper than anything composed from scatters (a 29-bit radix
+    chain needs dozens).  Its cost is compile time per distinct
+    (shape, operand-count) bucket, paid once per process and excluded
+    by warmup — the right trade for production runs where one process
+    sweeps many same-shaped block pairs.
   * "radix" (DAMAR_SORT=radix): stable LSD radix passes built from
     cumsum + permutation-scatter, fully UNROLLED, 2-bit digits.
-    Compiles in seconds; runs ~360-1300 ms at seeding shapes.  Kept
-    for compile-dominated situations (one-shot tiny jobs, debugging).
+    Compiles in seconds.  Kept for compile-dominated situations
+    (one-shot tiny jobs, debugging).
+  * "host" (DAMAR_SORT=host): numpy/C stable sort via pure_callback,
+    for the CPU backend.
 
-Other measured costs shaping this module (TPU chip, 4M elements):
-jnp.searchsorted ~700 ms (never use); cumsum/cummax ~sub-ms; gather
-~35 ms; scatter ~25-40 ms.
+jnp.searchsorted is avoided throughout: a radix merge of the two
+sorted streams replaces it.
 
 All functions are shape-static, stable, and deterministic.
 """
@@ -45,7 +44,7 @@ def host_lexsort(keys) -> "object":
 
 
 def _backend() -> str:
-    """Sort backend: "xla" (default, fastest on TPU), "radix"
+    """Sort backend: "xla" (default, the device path), "radix"
     (compile-cheap unrolled passes), or "host" (numpy stable sort via
     pure_callback — ~3.5x faster than XLA's sort on the CPU fallback
     path; NEVER the right choice on a real accelerator, and not safe

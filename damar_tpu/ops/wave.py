@@ -1,13 +1,12 @@
 """Batched banded-DP alignment kernels: seed extension and trace points.
 
-TPU-first re-design of the O(nd) wavefront aligner (SURVEY.md §2.3
+Accelerator re-design of the O(nd) wavefront aligner (SURVEY.md §2.3
 'seed-extend', upstream dalign/align.c forward_wave/reverse_wave —
 upstream-path citation, reference mount empty).  The reference's
 scalar, data-dependent furthest-reaching wave is replaced by a
 fixed-shape vector program over a batch of seeds:
 
-  * state is an edit-distance band D[S, W] (W = 128 lanes = one VPU
-    register row per seed);
+  * state is an edit-distance band D[S, W] (W = 128 lanes per seed);
   * each DP row costs a handful of [S, W] vector ops — the serial
     prefix dependency of the classic row recurrence is broken with a
     log2(W)-step prefix-min scan (min-plus formulation);
@@ -178,9 +177,8 @@ def extend_wave(a_bases, b_bases, aorigin, borigin, alim, blim,
         a_chars = _gather_chars(a_bases, aorigin, v0a, R, rv)
         v0b = st["rtot"] + st["boff"] - CTR
         b_tile = _gather_chars(b_bases, borigin, v0b, R + W, rv)
-        # traced trip count: XLA-TPU fully unrolls static bounds
         st, _, _ = jax.lax.fori_loop(
-            0, jnp.int32(R), row_body, (st, a_chars, b_tile))
+            0, R, row_body, (st, a_chars, b_tile))
         st["rtot"] = st["rtot"] + R
         # X-drop at chunk granularity: stop when the final row's best
         # score fell more than xdrop below the all-time best.  (Per-row
@@ -285,7 +283,7 @@ def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
             Dn = _row_update(D, x, bw, diag_valid, lane_valid, lane)
             return jnp.where(row_active[:, None], Dn, D)
 
-        D = jax.lax.fori_loop(0, jnp.int32(tspace), row_body, st["D"])
+        D = jax.lax.fori_loop(0, tspace, row_body, st["D"])
 
         # commit: every live seed is now exactly at its segment end
         va = st["done"] + seg_rows

@@ -1,18 +1,18 @@
 """Distributed overlap: A-shards resident, B-shards ring-rotated.
 
 The reference parallelizes by a block-pair job matrix over cluster
-nodes with a shared filesystem (SURVEY.md §2.9); the TPU-native design
-holds one A-shard resident per chip and rotates B-shards around the
-mesh ring with lax.ppermute so every (A, B) block pair meets on some
-chip after n_devices rotations — no host round-trips, collectives ride
-ICI.  The rotated payload includes the B-shard's CANONICAL k-mer index
+nodes with a shared filesystem (SURVEY.md §2.9); this design holds
+one A-shard resident per device and rotates B-shards around the mesh
+ring with lax.ppermute so every (A, B) block pair meets on some device
+after n_devices rotations — no host round-trips; the collectives ride
+the device interconnect (NVLink between the GPUs of one host).  The rotated payload includes the B-shard's CANONICAL k-mer index
 (codes + strand-packed positions), so each shard's index is built once
 and then travels the ring instead of being re-sorted at every
 rotation.  Seeding is the canonical single-pass design of
 ops.seeding.find_seeds_canonical_dev (both orientations from one
 merge, comp bit in the band key); extension and trace are the
-bit-parallel band kernels (ops.wave_bp / ops.wave_bp_pallas on real
-TPU).
+bit-parallel band kernels (ops.wave_bp_gpu on GPUs, ops.wave_bp
+elsewhere).
 
 Two mesh programs cover the full overlap story (SURVEY.md §7.9):
   1. the SEED+EXTEND ring sweep (ring_overlap_step) emitting
@@ -29,9 +29,10 @@ sweeps of one super-row of A-shards against one super-row of B-shards
 (k = nblocks / ndevices, padded with empty blocks) — the mesh analogue
 of HPC.daligner's job-matrix tiling.
 
-This module is exercised on virtual CPU meshes in tests and by the
-driver's dryrun; on a real pod slice the same code runs unchanged over
-a jax.distributed-initialized mesh.
+This module is exercised on virtual CPU meshes in tests and by
+__graft_entry__'s dryrun, and on the GPUs of one host by
+chip_smoke.py --four; across hosts the same code runs over a
+jax.distributed-initialized mesh.
 """
 from __future__ import annotations
 
@@ -55,15 +56,15 @@ def make_mesh(n_devices: int | None = None, axis: str = "block") -> Mesh:
 
 
 def _mesh_kernels():
-    """DP kernels usable INSIDE shard_map: pure-JAX bp on CPU meshes,
-    Pallas bp on real chips (the native C host kernels cannot run in a
-    mesh program)."""
-    if jax.default_backend() == "cpu":
-        from damar_tpu.ops.wave_bp import extend_wave_bp, trace_wave_bp
-        return extend_wave_bp, trace_wave_bp
-    from damar_tpu.ops.wave_bp_pallas import (extend_wave_bp_pl,
-                                              trace_wave_bp_pl)
-    return extend_wave_bp_pl, trace_wave_bp_pl
+    """DP kernels usable INSIDE shard_map (the native C host kernels
+    cannot run in a mesh program): the Pallas-Triton bp kernels on
+    GPU meshes, XLA's build of the plain-JAX bp kernels elsewhere."""
+    if jax.default_backend() == "gpu":
+        from damar_tpu.ops.wave_bp_gpu import (extend_wave_bp_gpu,
+                                               trace_wave_bp_gpu)
+        return extend_wave_bp_gpu, trace_wave_bp_gpu
+    from damar_tpu.ops.wave_bp import extend_wave_bp, trace_wave_bp
+    return extend_wave_bp, trace_wave_bp
 
 
 def payload_widths(blocks: list) -> tuple[int, int]:
@@ -437,7 +438,7 @@ def distributed_overlap_las(blocks: list, cfg: OverlapConfig,
     from damar_tpu.formats.las import (LasColumns, LasFile,
                                        encode_trace_columns)
     from damar_tpu.pipeline.overlap import (_n_segments_vec,
-                                            _wide_trace_kernel,
+                                            _retry_tiers,
                                             _trace_batch, TRACE_XOVR,
                                             dedupe_extents)
     from damar_tpu.formats.oflags import OVL_COMP
@@ -675,34 +676,36 @@ def distributed_overlap_las(blocks: list, cfg: OverlapConfig,
             rows_ok = kr[ok]
             ds_ok = ds[ok]
             if len(bad):
-                # wide-kernel retry on the host (same ladder as the
-                # pair driver); still-failing records are dropped
+                # host retry ladder, the pair driver's (_retry_tiers):
+                # each tier takes what the previous one could not
+                # trace; still-failing records are dropped
                 blk_a, blk_b = blocks[i], blocks[j]
                 from damar_tpu.core.blocks import revcomp_block
                 rc = revcomp_block(blk_b)
                 for comp in (0, 1):
                     sel = bad[kr[bad, 2] == comp]
-                    if not len(sel):
-                        continue
                     bb = rc if comp else blk_b
-                    coords = dict(
-                        ar=kr[sel, 0], br=kr[sel, 1],
-                        abp=kr[sel, 3], aep=kr[sel, 4],
-                        bbp=kr[sel, 5], bep=kr[sel, 6])
-                    res = _trace_batch(
-                        jnp.asarray(blk_a.bases), jnp.asarray(bb.bases),
-                        blk_a.starts.astype(np.int64),
-                        bb.starts.astype(np.int64), coords, cfg,
-                        kernel=_wide_trace_kernel(cfg))
-                    offs_r, okr, packed_r, dsum_r = res
-                    for q, r in enumerate(sel):
-                        if okr[q]:
-                            tr_rows.append(
-                                packed_r[offs_r[q]:offs_r[q + 1]])
-                            rows_ok = np.concatenate(
-                                [rows_ok, kr[r:r + 1]])
-                            ds_ok = np.concatenate(
-                                [ds_ok, dsum_r[q:q + 1]])
+                    for kernel in _retry_tiers(cfg):
+                        if not len(sel):
+                            break
+                        coords = dict(
+                            ar=kr[sel, 0], br=kr[sel, 1],
+                            abp=kr[sel, 3], aep=kr[sel, 4],
+                            bbp=kr[sel, 5], bep=kr[sel, 6])
+                        offs_r, okr, packed_r, dsum_r = _trace_batch(
+                            blk_a.bases, bb.bases,
+                            blk_a.starts.astype(np.int64),
+                            bb.starts.astype(np.int64), coords, cfg,
+                            kernel=kernel)
+                        for q, r in enumerate(sel):
+                            if okr[q]:
+                                tr_rows.append(
+                                    packed_r[offs_r[q]:offs_r[q + 1]])
+                                rows_ok = np.concatenate(
+                                    [rows_ok, kr[r:r + 1]])
+                                ds_ok = np.concatenate(
+                                    [ds_ok, dsum_r[q:q + 1]])
+                        sel = sel[~okr[:len(sel)]]
             if not len(rows_ok):
                 continue
             nrec = len(rows_ok)

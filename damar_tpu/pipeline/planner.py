@@ -2,7 +2,7 @@
 HPC.daligner-style job matrices; the reference's entire distributed
 story is independent jobs + file rendezvous).
 
-The TPU-native equivalents:
+The equivalents here:
   * plan_block_pairs: the N*(N+1)/2 block-pair matrix with per-pair
     .las outputs and merge steps — as a data structure, not a shell
     script (but render_script emits the shell form for parity).
@@ -373,7 +373,7 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
 
     # pipelined sweep: on a device backend, pair N's trace + .las
     # encode runs on host cores (bit-identical C kernels) while the
-    # chip seeds/extends pair N+1; on the CPU backend this degrades to
+    # device seeds/extends pair N+1; on the CPU backend this degrades to
     # the plain sequential loop
     for tag, la, lb, st in overlap_pairs_pipelined(job_iter(), cfg):
         i, j, name, out_a, out_b, t0 = tag
@@ -388,6 +388,8 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
         manifest.mark(name, novl=la.novl, wall=round(time.time() - t0, 2))
         stats["pairs"] += 1
         stats["overlaps"] += la.novl
+        for k in ("trace_retries", "trace_retries_wide", "dropped_trace"):
+            stats[k] = stats.get(k, 0) + st.get(k, 0)
         if verbose:
             print(f"# {name}: {la.novl} overlaps "
                   f"({time.time() - t0:.1f}s) {st}")

@@ -148,6 +148,41 @@ def sample_reads(genome: np.ndarray, coverage: float, mean_len: int,
     )
 
 
+def read_pair_units(n_pairs: int, n_units: int, min_len: int = 10_000,
+                    max_len: int = 20_000, err: float = 0.135,
+                    seed: int = 0) -> dict:
+    """Read-scale work units for the bit-parallel DP kernels.
+
+    n_pairs random templates of uniform length in [min_len, max_len]
+    are each sampled twice with CLR errors at `err` per read (A and B
+    are the two concatenations).  Unit u works on pair u % n_pairs;
+    even units extend forward from the pair's start, odd units in
+    reverse from its end.  Returns the extension arguments (A, B,
+    aorigin, borigin, alim, blim, rev) and whole-pair trace arguments
+    (astart, bstart, tlim_a, tlim_b: abpos = bbpos = 0)."""
+    rng = np.random.default_rng(seed)
+    a_parts, b_parts = [], []
+    for _ in range(n_pairs):
+        src = rng.integers(0, 4, int(rng.integers(min_len, max_len + 1)),
+                           dtype=np.uint8)
+        a_parts.append(mutate(src, err, rng))
+        b_parts.append(mutate(src, err, rng))
+    a_off = np.cumsum([0] + [len(x) for x in a_parts])
+    b_off = np.cumsum([0] + [len(x) for x in b_parts])
+    p = np.arange(n_units) % n_pairs
+    rev = (np.arange(n_units) % 2) == 1
+    la = (a_off[p + 1] - a_off[p]).astype(np.int32)
+    lb = (b_off[p + 1] - b_off[p]).astype(np.int32)
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return dict(
+        A=np.concatenate(a_parts), B=np.concatenate(b_parts),
+        aorigin=i32(np.where(rev, a_off[p + 1], a_off[p])),
+        borigin=i32(np.where(rev, b_off[p + 1], b_off[p])),
+        alim=la, blim=lb, rev=rev,
+        astart=i32(a_off[p]), bstart=i32(b_off[p]),
+        tlim_a=la, tlim_b=lb)
+
+
 def write_sim_fasta(path: str, sim: SimReads) -> None:
     from damar_tpu.formats.fasta import write_fasta
     headers = [

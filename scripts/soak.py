@@ -29,9 +29,12 @@ def main() -> int:
     ap.add_argument("--finish-raw", type=int, default=None,
                     help="override TourConfig.finish_raw_rounds")
     ap.add_argument("--workdir", default=None)
+    ap.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend")
     args = ap.parse_args()
-    import jax
-    jax.config.update("jax_platforms", "cpu")
+    if args.cpu:
+        import jax
+        jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from damar_tpu.core.config import PipelineConfig, TourConfig

@@ -135,7 +135,7 @@ class TestPlanExecution:
         """hpc-plan's rendered shell lines must run as-is from an
         arbitrary workdir (the shared-filesystem job contract): the
         PYTHONPATH prologue makes the checkout importable and
-        DAMAR_PLATFORM pins the backend in fresh processes."""
+        JAX_PLATFORMS pins the backend in fresh processes."""
         import io
         import contextlib
         import subprocess
@@ -148,7 +148,7 @@ class TestPlanExecution:
         head = [l for l in lines if l.startswith("export")]
         jobs = [l for l in lines if l.startswith("python")][:1]
         assert head and jobs, script[:200]
-        env = dict(os.environ, DAMAR_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         r = subprocess.run("\n".join(head + jobs), shell=True, cwd=w,
                            env=env, capture_output=True, text=True,
                            timeout=240)

@@ -8,9 +8,9 @@ mismatch would silently change alignment results.
 import numpy as np
 import jax.numpy as jnp
 
-from damar_tpu.ops.wave_pallas import (_gather_packed,
-                                       _gather_packed_words,
-                                       _pack_bases)
+from damar_tpu.ops.wave_bp import (_gather_packed,
+                                   _gather_packed_words,
+                                   _pack_bases)
 
 
 def _unpack(tile_words, length):

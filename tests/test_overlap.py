@@ -331,3 +331,26 @@ class TestSlicedSeeding:
         assert int(r_s["nseeds"]) == n
         for k in ("aread", "bread", "apos", "bpos"):
             np.testing.assert_array_equal(r_u[k][:n], r_s[k][:n])
+
+
+class TestDefaultCapsAndRetryTiers:
+    def test_default_caps_scale_with_block(self):
+        """Callers that name no caps get a seed buffer sized from the
+        block and a hit cap far above any block's hit total (fixed
+        small caps truncated 200 Mbp blocks)."""
+        from types import SimpleNamespace
+        from damar_tpu.pipeline.overlap import default_caps
+        small = SimpleNamespace(cap=1 << 20)
+        huge = SimpleNamespace(cap=1 << 28)
+        assert default_caps(small, small) == (1 << 30, 1 << 17)
+        assert default_caps(small, huge) == (1 << 30, 1 << 23)
+
+    def test_retry_tiers_order(self):
+        """bp64 first, then the wide DP — the one ladder the pair driver
+        and the ring sweep share."""
+        from damar_tpu import native
+        from damar_tpu.pipeline import overlap as ov
+        tiers = ov._retry_tiers(CFG)
+        assert tiers[-1] is ov._wide_trace_kernel(CFG)
+        if native.available():
+            assert tiers == [ov._native_bp64_trace, ov._native_wide_trace]

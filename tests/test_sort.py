@@ -2,7 +2,7 @@
 
 The seeding stage's determinism (and the .las bit-identity goal) rests
 on every backend of damar_tpu.ops.sort producing the SAME stable
-order.  "xla" is the TPU production path, "radix" the compile-cheap
+order.  "xla" is the device production path, "radix" the compile-cheap
 fallback, "host" the numpy path the CPU bench fallback uses — all
 three must agree element-for-element.
 
